@@ -5,7 +5,7 @@ Capability parity with the reference's compiled search closures
 best-first traversal of the diversified search graph with the adaptive bound
 ``d_k + epsilon * (d_k - min_distance)`` (reference :1850-1852, :1873-1875).
 
-TPU shape: the reference expands one vertex at a time per query from a
+Batched shape: the reference expands one vertex at a time per query from a
 ``heapq`` seed set with a per-point visited bitmask. Here a whole *batch* of
 queries steps in lockstep:
 
@@ -161,8 +161,7 @@ def search(
 ):
     """Batched driver over query blocks (pads the final block so one compiled
     program serves any query count). With ``return_device=True`` results stay
-    on device (callers that rerank avoid a host round-trip — significant on
-    tunneled devices). ``_return_steps`` additionally returns the max
+    on device (callers that rerank avoid a host round-trip). ``_return_steps`` additionally returns the max
     while-loop step count over the batches (diagnostics)."""
     queries = jnp.asarray(queries)
     nq = queries.shape[0]
@@ -208,8 +207,8 @@ def search(
         tree_queries = jnp.asarray(tree_queries)
     out_idx, out_dist = [], []
     max_blk_steps = 0
-    # batching: per-step cost is nearly batch-size independent (steps/batch
-    # ~35 at 2048 and at 8192, diag_1m_qprof), so a serial tail batch costs
+    # batching: per-step cost is nearly batch-size independent (the step
+    # count per batch barely moves from 2048 to 8192), so a serial tail batch costs
     # almost a full extra while_loop. Up to 2x batch_size, serve everything
     # as ONE padded block (2048-multiple padding bounds compile variants);
     # beyond that, full batches + power-of-two tail buckets.

@@ -5,7 +5,7 @@
 // The algorithm here is successive shortest augmenting paths with node
 // potentials (a classical min-cost-flow method): pointer-chasing and
 // data-dependent control flow make this hostile to XLA, so it lives in C++
-// on the host while Sinkhorn (matrix scaling) runs on the TPU.
+// on the host while Sinkhorn (matrix scaling) runs on the device.
 //
 // Exposed C ABI:
 //   double emd_dense(int n1, int n2, const double* a, const double* b,

@@ -1,4 +1,4 @@
-"""Dense distance layer — TPU-native, batched metric kernels.
+"""Dense distance layer — batched metric kernels.
 
 Mirrors the capability surface of the reference's distance library
 (``pynndescent/distances.py:51-2263``): ~40 named metrics, the
@@ -9,7 +9,7 @@ Design differences from the reference (which compiles per-pair scalar loops
 with numba): every metric here is a *batched* JAX function over ``[..., d]``
 arrays — the trailing axis is the feature axis and all leading axes broadcast.
 Metrics therefore vmap/jit cleanly and the hot ones (euclidean / cosine / dot
-family) additionally have blocked pairwise **MXU matmul** fast paths exposed
+family) additionally have blocked pairwise **matmul** fast paths exposed
 through :func:`pairwise`, which is the primitive the NN-descent local join and
 the query beam search consume.
 
@@ -28,9 +28,12 @@ import numpy as np
 
 FLOAT32_EPS = float(np.finfo(np.float32).eps)
 
-# TPU MXU matmuls default to bf16-input precision; distance geometry needs
-# full f32 (the 3-pass bf16 'HIGHEST' mode). Hot paths that can tolerate
-# lower precision pass an explicit override.
+# Distance grams ask for full float32 products: the gram/cancellation form
+# ||x||^2 + ||y||^2 - 2<x, y> loses near-neighbor ordering at lower input
+# precision. On an NVIDIA H100, HIGHEST means true fp32 with TF32 off (the
+# default would round operands to TF32's 10-bit mantissa); on the CPU it is
+# plain fp32. Hot paths that can tolerate lower precision pass an explicit
+# override.
 HIGHEST = jax.lax.Precision.HIGHEST
 FLOAT32_MAX = float(np.finfo(np.float32).max)
 
@@ -554,13 +557,13 @@ def yule(x, y):
 
 
 # ---------------------------------------------------------------------------
-# Bit-packed binary metrics (uint8 lanes, popcount on the VPU)
+# Bit-packed binary metrics (uint8 lanes, popcount)
 # ---------------------------------------------------------------------------
 
 
 def bit_hamming(x, y):
     r"""Popcount of XOR over packed uint8 vectors; returns raw bit count
-    (distances.py:1780). Uses lax.population_count — the TPU-native analog of
+    (distances.py:1780). Uses lax.population_count — the batched analog of
     the reference's hand-written llvm.ctpop.i8 intrinsic (distances.py:31)."""
     return jnp.sum(
         jax.lax.population_count(jnp.bitwise_xor(x, y)).astype(jnp.float32), axis=-1
@@ -577,12 +580,12 @@ def bit_jaccard(x, y):
 
 
 # ---------------------------------------------------------------------------
-# Pairwise block kernels (the MXU fast path)
+# Pairwise block kernels (the matmul fast path)
 # ---------------------------------------------------------------------------
 
 
 def _pairwise_sqeuclidean(X, Y):
-    # ||x||^2 + ||y||^2 - 2 x.y as one MXU matmul; clip negatives from
+    # ||x||^2 + ||y||^2 - 2 x.y as one matmul; clip negatives from
     # cancellation. This is the single hottest kernel of the framework.
     x_sq = jnp.sum(X * X, axis=-1)[:, None]
     y_sq = jnp.sum(Y * Y, axis=-1)[None, :]
@@ -643,7 +646,7 @@ def _pairwise_proxy_inner_product(X, Y):
     return jnp.where(bad, FLOAT32_MAX, val)
 
 
-# Metrics whose pairwise form is a single MXU matmul.
+# Metrics whose pairwise form is a single matmul.
 _PAIRWISE_FAST = {
     "euclidean": _pairwise_euclidean,
     "l2": _pairwise_euclidean,
@@ -683,7 +686,7 @@ def pairwise_rowwise(metric, Q, C, **kwds):
 
     This is the shape the NN-descent local join and the beam search use:
     each row has its own candidate block. The euclidean/cosine family
-    reduces to batched matmuls (MXU); everything else broadcasts on the VPU.
+    reduces to batched matmuls; everything else broadcasts elementwise.
     """
     name = metric if isinstance(metric, str) else None
     if name in ("euclidean", "l2", "sqeuclidean") and not kwds:

@@ -1,10 +1,10 @@
-"""Neighbor-state ops — the TPU replacement for the reference's per-point heaps.
+"""Neighbor-state ops — the batched replacement for the reference's per-point heaps.
 
 The reference's central data structure is a per-row binary max-heap
 ``(indices i32[n,k], distances f32[n,k], flags u8[n,k])`` mutated by scalar
 ``siftdown`` / ``checked_flagged_heap_push`` loops (reference: utils.py:130-533).
 
-On TPU the idiomatic equivalent is a *sorted* fixed-width neighbor state:
+On an accelerator the idiomatic equivalent is a *sorted* fixed-width neighbor state:
 
     idx  i32[n, k]  — neighbor ids, sorted ascending by distance, -1 = empty
     dist f32[n, k]  — distances, +inf for empty slots
@@ -14,7 +14,7 @@ On TPU the idiomatic equivalent is a *sorted* fixed-width neighbor state:
 mask duplicates with a lexicographic sort on (id, dist, age), re-sort by
 distance, keep the first k. One fused op updates all n rows at once —
 replacing millions of data-dependent scalar heap operations with two
-row-parallel sorts on the VPU.
+row-parallel sorts.
 
 Duplicate suppression matches the reference's ``checked_heap_push`` linear
 scan semantics (utils.py:429-431): a candidate equal to an existing neighbor
@@ -54,8 +54,8 @@ def make_neighbor_state(n: int, k: int) -> NeighborState:
 # bitcast to int32 order-preservingly, and the age tie-break is exactly what
 # stability gives for free: incumbents precede candidates in the
 # concatenated operand, and two incumbents never share an id. Semantically
-# identical (test_neighbors asserts it); OFF until measured faster on TPU
-# (XLA lowers stable sorts with an extra hidden iota operand).
+# identical (test_neighbors asserts it); OFF until measured faster on the
+# device (XLA lowers stable sorts with an extra hidden iota operand).
 DEDUP_STABLE = False
 
 
@@ -63,7 +63,7 @@ def _dedup_keys(idx, dist, age):
     """Sort by (idx, dist[, age]); mark any entry whose id equals its left
     neighbor's id as a duplicate. Invalid ids (<0) are pushed to the end.
 
-    The age (2 bits) is packed into the id operand — TPU sort compile cost
+    The age (2 bits) is packed into the id operand — sort compile cost
     grows steeply with operand count, and ties in (id, dist) resolve by age
     (exact ties prefer the incumbent). Caps ids at 2^29 (~536M points)."""
     combined = idx * 4 + age

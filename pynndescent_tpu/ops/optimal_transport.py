@@ -4,9 +4,9 @@ Mirrors the capability surface of the reference's OT engine
 (``pynndescent/optimal_transport.py``): entropy-regularised Sinkhorn
 transport (single + batch) and exact Kantorovich / EMD distance.
 
-TPU-first split:
+Device/host split:
 
-* **Sinkhorn** is batched matrix scaling — inherently TPU-native. It is
+* **Sinkhorn** is batched matrix scaling — natural device work. It is
   implemented as jittable JAX loops (``sinkhorn_transport_plan``,
   ``sinkhorn``, ``sinkhorn_distance_batch``) so it can run inside the
   NN-descent hot path (reference: optimal_transport.py:1020-1163).

@@ -4,9 +4,9 @@ Capability parity with the reference's refinement layer
 (``pynndescent_.py:369-760``): forward occlusion pruning (``diversify``),
 degree-aware variants, reverse-graph pruning, and degree capping.
 
-TPU shape: the reference runs a per-row Python loop growing a keep-list.
+Batched shape: the reference runs a per-row Python loop growing a keep-list.
 Here each row's neighbor-pair distances are one batched tile (gather
-``[rows, k, d]`` then MXU/VPU ``[rows, k, k]``), and the sequential
+``[rows, k, d]`` then a batched ``[rows, k, k]`` product), and the sequential
 keep-scan (kept entries occlude later ones) is a ``lax.scan`` over the k
 columns carried across all rows at once — k is small (<= ~60), rows are
 wide, so the scan is cheap and fully parallel across rows.

@@ -6,10 +6,10 @@ Capability parity with the reference's quantization block
 ``prepare()`` and searched with an asymmetric (float query vs quantized
 candidate) distance, then reranked with the true metric.
 
-TPU shape: the reference JIT-compiles per-pair scalar loops that decode one
+Batched shape: the reference JIT-compiles per-pair scalar loops that decode one
 byte at a time. Here the asymmetric distance *dequantizes candidate tiles on
 the fly* — a [b, m, d] uint8 gather through the (at most 256-entry) codebook
-lives in registers/VMEM and feeds the same batched MXU/VPU distance kernels
+stays on chip and feeds the same batched distance kernels
 the float path uses. Bit-packed binary data uses lax.population_count.
 """
 

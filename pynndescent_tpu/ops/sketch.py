@@ -1,15 +1,14 @@
-"""Feature-hash sketching: the TPU-native proxy path for wide sparse data.
+"""Feature-hash sketching: the dense proxy path for wide sparse data.
 
 The reference computes exact sparse distances inside the NN-descent join
 (`/root/reference/pynndescent/sparse.py:21-941`) because merge-based CSR row
-intersection is cheap on a CPU. On TPU the equivalent (a tagged sort per
-candidate pair, `ops/sparse_ell.py`) is VPU sort-bound: the join evaluates
+intersection is cheap on a CPU. On an accelerator the equivalent (a tagged
+sort per candidate pair, `ops/sparse_ell.py`) is sort-bound: the join evaluates
 O(n * max_candidates^2) pair distances per iteration and every one costs a
-width-2*nnz sort, while the dense path amortises the same pairs into MXU
-matmuls. Measured on the bench TF-IDF workload (50k docs x 100k features,
-nnz 64) the exact-ELL build is ~4x *slower* than the CPU reference.
+width-2*nnz sort, while the dense path amortises the same pairs into
+matmuls.
 
-The TPU-first formulation mirrors the reference's own ``proxy_distances``
+The dense formulation mirrors the reference's own ``proxy_distances``
 design (`/root/reference/pynndescent/distances.py:2190-2239`: build/search
 under a cheap order-preserving proxy, exact rerank on output): project each
 sparse row into a dense h-dim space by signed feature hashing
@@ -18,7 +17,7 @@ sparse row into a dense h-dim space by signed feature hashing
 
 which preserves inner products and norms in expectation (collision noise
 O(|x||y|/sqrt(h)) — the standard hashing-trick estimator). Build, trees,
-search graph, and beam search then all run on the dense MXU path over S;
+search graph, and beam search then all run on the dense matmul path over S;
 every *returned* distance (neighbor_graph and query results) is recomputed
 exactly from the packed-ELL rows, so the proxy is invisible in the API
 except as a recall/speed trade tuned by ``h``.
@@ -29,12 +28,12 @@ russellrao/sokal_sneath/matching/kulsinski/rogers_tanimoto) use a
 **1-bit (sign) minhash**: D independent min-wise hashes of the support,
 keeping one bit of each as s_t = +-1. Since P(minhash match) = J,
 E[s_x . s_y] = J exactly, so squared euclidean over the sign vectors
-(2D - 2<s_x, s_y>) orders by estimated Jaccard — and the whole dense MXU
+(2D - 2<s_x, s_y>) orders by estimated Jaccard — and the whole dense
 pipeline (pairwise matmuls, rowwise join einsums, RP-tree projections,
 beam search) runs natively on it. Variance is (1 - J^2)/D per pair vs the
 full-value signature's J(1-J)/h, i.e. D ~ 11h at J~0.1 for equal noise;
-sign bits are ~10x cheaper per dimension on TPU because the join is an
-MXU matmul instead of a VPU equality-compare, and +-1 is EXACT in
+sign bits are cheaper per dimension because the join is a matmul
+instead of an elementwise equality-compare, and +-1 is EXACT in
 bfloat16, so the half-traffic bf16 gather paths stay lossless (the value
 signature, 24-bit ints in f32, is destroyed by bf16 rounding — a real
 bug we shipped: see models/nndescent.py prepare()). The legacy value
@@ -81,9 +80,9 @@ DEFAULT_H = 4096
 # sign-minhash width: ~ an h=745 full-value signature in estimator noise
 # ((1-J^2)/D vs J(1-J)/h at J~0.1). The 50k TF-IDF probe: an h=1024 value
 # signature's exact top-60 covers 0.976 of the true top-10, h=256 only
-# 0.728; D=8192 sits near the former at an 8x cheaper join than value
-# hamming (MXU matmul vs VPU equality-compare). Clamped by row count so
-# the f32 signature matrix stays <~2.5 GB (see resolve()).
+# 0.728; D=8192 sits near the former with a matmul join instead of value
+# hamming's equality-compare. Clamped by row count so the f32 signature
+# matrix stays <~2.5 GB (see resolve()).
 DEFAULT_D_SIGN = 8192
 # legacy full-value signature width (encode="value", old pickles)
 DEFAULT_H_MINHASH = 256
@@ -274,7 +273,8 @@ def minhash_sketch_csr(csr, h, seed=0):
     set. P(sig_x[t] == sig_y[t]) = Jaccard(x, y) (up to 2^-24 collisions),
     so internal metric ``hamming`` over signatures estimates 1 - J with
     variance J(1-J)/h. Computed on device in row blocks (the hash grid is
-    O(n * nnz * h) integer ops — VPU work, trivial next to the build)."""
+    O(n * nnz * h) integer ops — elementwise work, trivial next to the
+    build)."""
     import functools
 
     import jax

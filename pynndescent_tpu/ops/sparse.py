@@ -6,12 +6,12 @@ descent driver). The mathematical distances are identical to the dense
 metrics evaluated on the materialised vectors — the reference's sparse
 kernels exist because *numba on CPU* benefits from skipping zeros.
 
-TPU reality is the opposite: zero-skipping creates data-dependent shapes the
-compiler cannot tile, while dense tiles ride the MXU at full rate. The
-TPU-native sparse strategy is therefore **block densification**:
+On an accelerator it is the opposite: zero-skipping creates data-dependent
+shapes the compiler cannot tile, while dense tiles run as matrix products at
+full rate. The sparse strategy here is therefore **block densification**:
 
 * CSR input is densified (whole-matrix when ``n_features`` is small enough
-  to fit HBM — the overwhelmingly common regime for the reference's users),
+  to fit device memory — the overwhelmingly common regime for the reference's users),
   and the dense pipeline runs unchanged;
 * the sparse metric registry maps every reference sparse metric name to its
   dense batched kernel, preserving the API surface
@@ -39,7 +39,7 @@ def is_sparse(data) -> bool:
 
 
 def densify(data, max_features: int = DENSIFY_MAX_FEATURES) -> np.ndarray:
-    """Materialise CSR input for the dense TPU pipeline."""
+    """Materialise CSR input for the dense device pipeline."""
     csr = data.tocsr()
     if csr.shape[1] > max_features:
         raise ValueError(
@@ -48,6 +48,17 @@ def densify(data, max_features: int = DENSIFY_MAX_FEATURES) -> np.ndarray:
             "constructor selects it automatically for wide sparse input)."
         )
     return np.ascontiguousarray(csr.toarray().astype(np.float32))
+
+
+def l2_normalize_rows(data):
+    """Scale each CSR row to unit L2 norm; all-zero rows stay zero (the
+    semantics of ``sklearn.preprocessing.normalize(norm="l2")``)."""
+    csr = data.tocsr()
+    csr = csr.astype(np.result_type(csr.dtype, np.float32), copy=True)
+    norms = np.sqrt(np.asarray(csr.multiply(csr).sum(axis=1)).ravel())
+    norms[norms == 0.0] = 1.0
+    csr.data /= np.repeat(norms, np.diff(csr.indptr)).astype(csr.dtype)
+    return csr
 
 
 # Registry mirroring reference sparse.py:1053-1095. Implementations are the

@@ -3,7 +3,7 @@
 Completes the sparse story beyond the densification threshold
 (ops/sparse.py): when ``n_features`` is too large to materialise, CSR rows
 are packed into fixed-width ELL form and distances are computed directly on
-the sparse representation — the TPU equivalent of the reference's
+the sparse representation — the batched equivalent of the reference's
 merge-based CSR-row primitives (reference sparse.py:21-941,
 ``sparse_sum/diff/mul/dot_product`` etc.) and its ~25-metric sparse registry
 (``sparse_named_distances``, sparse.py:1053-1095).
@@ -21,11 +21,11 @@ Two batched primitives power every metric:
 * ``sparse_dot`` — one sort per pair family: concatenate the two index lists
   with a side tag in the low bit (``idx*2 + side``), sort, and multiply
   adjacent entries whose keys differ by exactly 1 (a matching index pair from
-  opposite sides). The TPU replacement for ``sparse_dot_product``
+  opposite sides). The batched replacement for ``sparse_dot_product``
   (reference sparse.py:277).
 * ``union_pairs`` — the same sort, materialising the *aligned value pairs*
   over the union of stored indices: per union feature, (x value, y value)
-  with zero fill for the absent side, plus structural masks. The TPU
+  with zero fill for the absent side, plus structural masks. The batched
   replacement for ``sparse_sum/diff/mul`` (reference sparse.py:136-276):
   any merge-based metric becomes elementwise math + a masked reduction.
 

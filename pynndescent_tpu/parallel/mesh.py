@@ -2,21 +2,26 @@
 
 The reference's only parallelism is shared-memory CPU threading with
 owner-computes vertex blocks (SURVEY §2.2; reference utils.py:706-731).
-The TPU-native equivalents implemented here map each reference thread
-pattern onto a mesh collective:
+The equivalents implemented here map each reference thread pattern onto a
+mesh collective:
 
-| reference thread pattern | TPU mapping here |
+| reference thread pattern | mapping here |
 |---|---|
 | owner-computes vertex blocks (utils.py:706-731) | neighbor state sharded along vertices over the ``data`` axis (``sharded_nn_descent``); XLA partitions the row-blocked iteration so each device updates its shard |
 | "every thread scans all updates" reverse pass (utils.py:259-306) | the reverse-sampling segmented sort / scatter runs under the SPMD partitioner, which inserts the cross-shard all-to-all |
 | per-thread preallocated update buffers (pynndescent_.py:283-294) | fixed-shape per-row candidate pools — no buffers needed |
 | joblib tree-per-thread forest build (rp_trees.py:2853) | trees vmapped on device; forest arrays replicated |
 | parallel_batch_queries (pynndescent_.py:1791) | query batch sharded over the mesh (``sharded_search``) |
-| — (no reference analog: data larger than one machine) | ``shard_data=True``: X row-sharded, candidate point blocks ride an ICI ring (ppermute) through every shard per join tile (``_ring_gather_rows``) |
+| — (no reference analog: data larger than one machine) | ``shard_data=True``: X row-sharded, candidate point blocks circulate through every shard per join tile as a ppermute ring (``_ring_gather_rows``) |
+
+The mesh follows the algorithm, not a physical topology: on a GPU host the
+cards are joined all to all (NVLink), so a 1-D mesh over the cards is the
+natural shape, and XLA lowers the collectives to NCCL.
 
 Vertex counts that do not divide the mesh are handled by padding the
-*neighbor state* (never the data): pad rows merge nothing, bid nothing, and
-are sliced off the result.
+*neighbor state* (and, with ``shard_data=True``, X with zero rows): pad rows
+merge nothing, bid nothing, take the tail tree positions of the locality
+phases (masked in the last slab's sweep), and are sliced off the result.
 
 Given the PRNG key the computation is deterministic per executable; the
 sharded SPMD executable may differ from the single-device one by float
@@ -52,11 +57,12 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
     return Mesh(np.array(devices), (axis_name,))
 
 
-def make_mesh_2d(shape: tuple[int, int], axis_names: tuple[str, str] = ("dcn", "data")) -> Mesh:
-    """2-D mesh: a coarse outer axis (DCN-style, across slices) times the
-    fast inner axis (ICI, within a slice). The build shards vertices over the
-    inner axis and replicates over the outer; serving shards queries over the
-    outer axis — the cross-slice axis never carries per-iteration traffic."""
+def make_mesh_2d(shape: tuple[int, int], axis_names: tuple[str, str] = ("replica", "data")) -> Mesh:
+    """2-D mesh: an outer replica axis times the inner ``data`` axis. The
+    build shards vertices over the inner axis and replicates over the outer;
+    serving shards queries over the outer axis — the replica axis never
+    carries per-iteration build traffic (useful when the outer axis spans
+    hosts joined by a slower network than the cards within a host)."""
     devices = np.array(jax.devices()[: shape[0] * shape[1]]).reshape(shape)
     return Mesh(devices, axis_names)
 
@@ -84,6 +90,7 @@ def sharded_nn_descent(
     axis_name: str = "data",
     shard_data: bool = False,
     init_state=None,
+    locality=None,
 ):
     """NN-descent with vertex-sharded state over ``mesh``.
 
@@ -92,82 +99,166 @@ def sharded_nn_descent(
     (identical sampling; ulp-level float differences may flip near-ties).
 
     ``shard_data=True`` additionally shards X's rows over the mesh —
-    the >per-device-HBM regime — and streams candidate point blocks around
-    the ICI ring per join tile (see ``_sharded_data_nn_descent``).
+    the >per-device-memory regime — and streams candidate point blocks
+    around a ppermute ring (see ``_data_sharded_stages``).
 
     ``init_state`` warm-starts from an existing NeighborState of n rows
     (the mesh analog of nn_descent's init_graph — NNDescent.update() routes
     its re-descent through this, matching the reference's update running
     under the same parallelism as the build, pynndescent_.py:2381-2553).
+
+    ``locality`` is nn_descent's option, run by the same schedule driver
+    (``ops.nndescent.run_schedule``): per phase the state and X move into
+    one tree's order (row moves between devices, ``_tree_moves``), every
+    device sweeps the windows of its own contiguous slab (windows never
+    straddle a slab boundary), phase iterations join within the phase's
+    tree order, and the state moves back. The one difference from a single
+    card: with ``shard_data=True`` the phase iterations sample the whole
+    table (the sharded join has no windowed form).
     """
-    if shard_data:
-        if init_state is not None:
-            raise NotImplementedError(
-                "init_state warm starts are not supported with "
-                "shard_data=True builds yet"
-            )
-        return _sharded_data_nn_descent(
-            X, n_neighbors, key, mesh,
-            metric=metric, metric_kwds=metric_kwds, n_iters=n_iters,
-            delta=delta, max_candidates=max_candidates, forest=forest,
-            leaf_cap=leaf_cap, block_rows=block_rows, axis_name=axis_name,
-        )
     X = jnp.asarray(X)
     n = X.shape[0]
     k = n_neighbors
-    axis_name = _data_axis(mesh, axis_name)
-    n_dev = mesh.shape[axis_name]
-    # pad the neighbor STATE (not the data) up to mesh divisibility: pad rows
-    # start empty, merge nothing (ops mask rows >= n), and are sliced off
+    axis = _data_axis(mesh, axis_name)
+    n_dev = mesh.shape[axis]
+    # pad the neighbor STATE up to mesh divisibility: pad rows start empty,
+    # merge nothing (ops mask rows >= n), and are sliced off
     n_pad = -(-n // n_dev) * n_dev
     if n_iters is None:
         n_iters = max(5, int(round(np.log2(max(n, 2)))))
     if max_candidates is None:
         max_candidates = min(60, n_neighbors)
+    rows = NamedSharding(mesh, P(axis, None))
+    replicated = NamedSharding(mesh, P())
+    if init_state is not None:
+        pad = n_pad - init_state.idx.shape[0]
+        init_state = jax.device_put(NeighborState(
+            jnp.pad(init_state.idx, ((0, pad), (0, 0)), constant_values=-1),
+            jnp.pad(init_state.dist, ((0, pad), (0, 0)), constant_values=jnp.inf),
+            jnp.pad(init_state.flag, ((0, pad), (0, 0))),
+        ), rows)
+    make = _data_sharded_stages if shard_data else _replicated_stages
+    init, stages, X_dev = make(
+        X, k, mesh, axis, n_pad=n_pad, metric=metric, metric_kwds=metric_kwds,
+        max_candidates=max_candidates, leaf_cap=leaf_cap, block_rows=block_rows,
+        stop_count=jnp.float32(delta * k * n),
+    )
+    state = init(key, init_state, forest)
+
+    loc = nnd_ops._resolve_locality(
+        locality, n, forest, n_iters,
+        sweep_ok=nnd_ops._sweep_ok(metric, metric_kwds, X),
+    )
+    orders = None
+    if loc is not None:
+        # pad ids take the tail tree positions (the last slab's tail)
+        orders = jnp.asarray(forest[0], jnp.int32)
+        tail = jnp.arange(n, n_pad, dtype=jnp.int32)
+        orders = jnp.concatenate(
+            [orders, jnp.broadcast_to(tail, (orders.shape[0], n_pad - n))], axis=1
+        )
+        orders = jax.device_put(orders, replicated)
+    state = nnd_ops.run_schedule(
+        state, X_dev, key, stages, loc=loc, orders=orders, n_iters=n_iters
+    )
+    idx, dist = nnd_ops._jit_sort(state.idx, state.dist)
+    return idx[:n], dist[:n]
+
+
+def _tree_moves(mesh, axis, n_dev, s):
+    """Row moves of a row-sharded NeighborState between id order and a
+    tree's order (``ops.nndescent._state_to_tree_order`` and its inverse),
+    as jitted shard_maps. Each device fetches exactly the rows of its own
+    slab through the ppermute ring (``_ring_gather_rows``), so no device
+    ever holds more than its shard plus one visiting shard. ``order`` is a
+    replicated permutation of the padded row count."""
+    from jax import shard_map
+
+    spec, rep = P(axis, None), P()
+
+    def inverse(order):
+        return (
+            jnp.zeros(order.shape[0], jnp.int32)
+            .at[order]
+            .set(jnp.arange(order.shape[0], dtype=jnp.int32), unique_indices=True)
+        )
+
+    def move(st, want, relabel):
+        me = jax.lax.axis_index(axis)
+        ids = jax.lax.dynamic_slice_in_dim(want, me * s, s)
+        got = NeighborState(*_ring_gather_rows(tuple(st), ids, axis, n_dev, s))
+        return got._replace(
+            idx=jnp.where(got.idx >= 0, relabel[jnp.maximum(got.idx, 0)], -1)
+        )
+
+    def shmap(fn):
+        return shard_map(fn, mesh=mesh, in_specs=(spec, rep, rep),
+                         out_specs=spec, check_vma=False)
+
+    @jax.jit
+    def to_tree(state, order):
+        # my tree positions hold ids order[pos]; neighbor ids -> positions
+        return shmap(move)(state, order, inverse(order))
+
+    @jax.jit
+    def from_tree(state_p, order):
+        # my ids sit at tree positions inv[id]; positions -> neighbor ids
+        return shmap(move)(state_p, inverse(order), order)
+
+    return to_tree, from_tree
+
+
+def _slab_sweep(mesh, axis, s, n, metric, x_sharded):
+    """``DescentStages.sweep`` on a mesh: every device sweeps the windows of
+    its own contiguous slab of tree positions. ``x_sharded``: the tree-order
+    data is row-sharded like the state; otherwise it is replicated with
+    ``n`` rows and each device takes its slab from it."""
+    from jax import shard_map
+
+    spec = P(axis, None)
+
+    def slab(st, Xp, *, win, m, offset):
+        off = jax.lax.axis_index(axis) * s
+        if not x_sharded:
+            Xp = jnp.take(Xp, off + jnp.arange(s, dtype=jnp.int32), axis=0,
+                          mode="fill", fill_value=0)
+        return nnd_ops._jit_window_sweep(
+            st, Xp, off, n - off, win=win, m=m, metric=metric, offset=offset
+        )
+
+    @functools.partial(jax.jit, static_argnames=("win", "m", "offset"))
+    def sweep(state_p, Xp, win, m, offset):
+        return shard_map(
+            functools.partial(slab, win=win, m=m, offset=offset), mesh=mesh,
+            in_specs=(spec, spec if x_sharded else P()), out_specs=spec,
+            check_vma=False,
+        )(state_p, Xp)
+
+    return sweep
+
+
+def _replicated_stages(X, k, mesh, axis, *, n_pad, metric, metric_kwds,
+                       max_candidates, leaf_cap, block_rows, stop_count):
+    """Init and ``DescentStages`` of the default mesh build: X replicated on
+    every device, the neighbor state row-sharded; XLA partitions the
+    row-blocked join iteration so each device updates its shard."""
+    n = X.shape[0]
+    n_dev = mesh.shape[axis]
     if block_rows is None:
         block_rows = min(nnd_ops.DEFAULT_BLOCK_ROWS, n_pad)
-
-    row_sharding = NamedSharding(mesh, P(axis_name, None))
+    row_sharding = NamedSharding(mesh, P(axis, None))
     replicated = NamedSharding(mesh, P())
-
     X = jax.device_put(X, replicated)
-    if forest is not None:
-        forest = tuple(jax.device_put(jnp.asarray(f), replicated) for f in forest)
-
     dist_rowwise = nnd_ops._resolve_rowwise_metric(metric, metric_kwds)
-    iteration = functools.partial(
-        nnd_ops._descent_iteration,
-        max_candidates=max_candidates,
-        dist_rowwise=dist_rowwise,
-        block_rows=min(block_rows, n_pad),
-        hop2_new_samples=max_candidates,
-        hop2_old_samples=max(1, max_candidates // 2),
-    )
-    stop_count = jnp.float32(delta * k * n)
 
     def constrain(state):
         return jax.tree.map(
             lambda a: jax.lax.with_sharding_constraint(a, row_sharding), state
         )
 
-    if init_state is not None:
-        # pad the warm-start rows up to mesh divisibility; pad rows are
-        # empty and merge nothing (ops mask rows >= n)
-        pad = n_pad - init_state.idx.shape[0]
-        if pad:
-            init_state = type(init_state)(
-                jnp.pad(init_state.idx, ((0, pad), (0, 0)), constant_values=-1),
-                jnp.pad(init_state.dist, ((0, pad), (0, 0)),
-                        constant_values=jnp.inf),
-                jnp.pad(init_state.flag, ((0, pad), (0, 0))),
-            )
-        init_state = jax.device_put(init_state, row_sharding)
-
     @functools.partial(jax.jit, static_argnames=("has_forest",))
-    def _build(X, forest, key, init, has_forest):
-        state = constrain(
-            make_neighbor_state(n_pad, k) if init is None else init
-        )
+    def _init(X, forest, key, init, has_forest):
+        state = constrain(make_neighbor_state(n_pad, k) if init is None else init)
         if has_forest:
             orders, starts, sizes = forest
 
@@ -179,32 +270,56 @@ def sharded_nn_descent(
                 return constrain(st)
 
             state = jax.lax.fori_loop(0, orders.shape[0], tree_body, state)
-        state = constrain(
+        return constrain(
             nnd_ops.init_random(
                 state, X, rng.derive(key, rng.ROLE_DESCENT_INIT),
                 n_extra=k, dist_rowwise=dist_rowwise,
             )
         )
 
+    def init(key, init_state, forest):
+        if forest is not None:
+            forest = tuple(jax.device_put(jnp.asarray(f), replicated) for f in forest)
+        return _init(X, forest, key, init_state, has_forest=forest is not None)
+
+    @functools.partial(jax.jit, static_argnames=("n_iters", "window_rows"))
+    def join(state, X_, key, n_iters, window_rows):
+        iteration = functools.partial(
+            nnd_ops._descent_iteration,
+            max_candidates=max_candidates,
+            dist_rowwise=dist_rowwise,
+            block_rows=min(block_rows, n_pad),
+            hop2_new_samples=max_candidates,
+            hop2_old_samples=max(1, max_candidates // 2),
+            window_rows=window_rows,
+        )
+
         def cond(carry):
-            st, it, changes = carry
+            _, it, changes = carry
             return (it < n_iters) & (changes > stop_count)
 
         def body(carry):
             st, it, _ = carry
-            st, ch = iteration(st, X, rng.derive(key, rng.ROLE_DESCENT_ITER, it))
+            st, ch = iteration(st, X_, rng.derive(key, rng.ROLE_DESCENT_ITER, it))
             return constrain(st), it + 1, ch.astype(jnp.float32)
 
         state, _, _ = jax.lax.while_loop(
-            cond, body, (state, jnp.int32(0), jnp.float32(np.inf))
+            cond, body, (constrain(state), jnp.int32(0), jnp.float32(np.inf))
         )
-        return sort_by_distance(state.idx, state.dist)
+        return state
 
-    if forest is not None:
-        idx, dist = _build(X, forest, key, init_state, has_forest=True)
-    else:
-        idx, dist = _build(X, None, key, init_state, has_forest=False)
-    return idx[:n], dist[:n]
+    to_tree_state, from_tree = _tree_moves(mesh, axis, n_dev, n_pad // n_dev)
+    stages = nnd_ops.DescentStages(
+        # the tree-order data stays replicated with n rows (its pad
+        # positions are masked by row count, as in the global join)
+        to_tree=lambda st, X_, order: (
+            to_tree_state(st, order), nnd_ops._jit_permute_rows(X_, order[:n])
+        ),
+        sweep=_slab_sweep(mesh, axis, n_pad // n_dev, n, metric, x_sharded=False),
+        join=join,
+        from_tree=from_tree,
+    )
+    return init, stages, X
 
 
 # ---------------------------------------------------------------------------
@@ -270,101 +385,95 @@ def group_topc(gkey, n_groups, sort_key, ints, cap):
     return tables, (g_s, rank, keep, ints_s)
 
 
-def _ring_gather_rows(X_shard, ids, axis_name, n_dev, shard_size):
-    """Gather global rows ``ids`` from a row-sharded X by circulating the
-    shards around the ring (ppermute): per step, each device picks out the
-    ids the visiting shard owns. Communication is the X shards themselves —
-    independent of how many rows are requested — and only one visiting shard
-    is materialised at a time (the >HBM property)."""
+def _ring_gather_rows(shards, ids, axis_name, n_dev, shard_size):
+    """Gather global rows ``ids`` from row-sharded arrays (one array or a
+    tuple of them sharing the row axis) by circulating the shards around
+    the ring (ppermute): per step, each device picks out the ids the
+    visiting shard owns. Communication is the shards themselves —
+    independent of how many rows are requested — and only one visiting
+    shard is materialised at a time (the >device-memory property)."""
     me = jax.lax.axis_index(axis_name)
-    out = jnp.zeros(ids.shape + (X_shard.shape[-1],), X_shard.dtype)
 
-    def step(s, carry):
-        out, Xs = carry
-        src = (me + s) % n_dev  # owner of the shard currently held
+    def pick(out, held, src):
         local = ids - src * shard_size
         hit = (local >= 0) & (local < shard_size)
-        rows = Xs[jnp.clip(local, 0, shard_size - 1)]
-        out = jnp.where(hit[..., None], rows, out)
-        Xs = jax.lax.ppermute(
-            Xs, axis_name, [(i, (i - 1) % n_dev) for i in range(n_dev)]
+        li = jnp.clip(local, 0, shard_size - 1)
+        return jax.tree.map(
+            lambda o, a: jnp.where(
+                hit.reshape(hit.shape + (1,) * (a.ndim - 1)), a[li], o
+            ),
+            out, held,
         )
-        return out, Xs
 
-    out, _ = jax.lax.fori_loop(0, n_dev, step, (out, X_shard))
+    def step(t, carry):
+        out, held = carry
+        held = jax.lax.ppermute(
+            held, axis_name, [(i, (i - 1) % n_dev) for i in range(n_dev)]
+        )
+        return pick(out, held, (me + t) % n_dev), held
+
+    out = jax.tree.map(
+        lambda a: jnp.zeros(ids.shape + a.shape[1:], a.dtype), shards
+    )
+    out = pick(out, shards, me)
+    out, _ = jax.lax.fori_loop(1, n_dev, step, (out, shards))
     return out
 
 
-def _sharded_data_nn_descent(
-    X,
-    n_neighbors: int,
-    key,
-    mesh: Mesh,
-    *,
-    metric="euclidean",
-    metric_kwds=None,
-    n_iters: int | None = None,
-    delta: float = 0.001,
-    max_candidates: int | None = None,
-    forest=None,
-    leaf_cap: int = 64,
-    block_rows: int | None = None,
-    axis_name: str = "data",
-    exchange_slack: int = 32,
-):
-    """NN-descent with BOTH X and the neighbor state row-sharded over the
-    mesh (shard_map + explicit collectives) — the >per-device-HBM regime.
+def _data_sharded_stages(X, k, mesh, axis, *, n_pad, metric, metric_kwds,
+                         max_candidates, leaf_cap, block_rows, stop_count,
+                         exchange_slack: int = 32):
+    """Init and ``DescentStages`` with BOTH X and the neighbor state
+    row-sharded over the mesh (shard_map + explicit collectives) — the
+    >per-device-memory regime (``shard_data=True``).
 
-    This is the faithful TPU mapping of the reference's owner-computes
+    This is the mesh mapping of the reference's owner-computes
     update pattern (SURVEY §5; reference utils.py:536-733): each device owns
     a vertex shard and its state rows, performs the local join over its own
     rows' candidates, and routes fixed-width **(target, source, distance)
     update tuples to the target's owner shard with ``lax.all_to_all``**.
     Per-iteration cross-device volume per device:
 
+      * candidate point rows:         the X shards, once around the ring
+                                      per gathered super-block of rows
       * reverse-candidate edges out:  O(n·k / n_dev) tuples
       * reverse winners returned:     O(n·c / n_dev) tuples
       * join update tuples:           O(exchange_slack · n·k / n_dev) tuples
       * heap-root thresholds:         O(n) scalars (all_gather of [s] f32)
 
     — no replicated O(n·k) state and no O(n·k·n_dev) all-gather. Peak
-    memory is ``n·d/n_dev + O(n·k/n_dev)`` per device. Bucket overflow
-    drops the *worst* entries (highest random priority for samples, largest
-    distance for updates), so convergence degrades gracefully instead of
-    erroring; ``exchange_slack`` scales the update budget.
+    memory is ``n·d/n_dev + O(n·k/n_dev)`` per device. Each pair-join block
+    keeps, per destination, its best ``cap_b`` update tuples in its own
+    slot of a fixed buffer (work linear in the shard); overflow drops the
+    *worst* entries (highest random priority for samples, largest distance
+    for updates), so convergence degrades gracefully instead of erroring;
+    ``exchange_slack`` scales the update budget. The tree-order moves of the
+    locality phases ring the X shards once per phase (``_tree_moves``).
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
-    X = jnp.asarray(X)
     n, d = X.shape
-    k = n_neighbors
-    axis_name = _data_axis(mesh, axis_name)
-    n_dev = mesh.shape[axis_name]
-    if n % n_dev != 0:
-        # pad X with zero rows; pad rows are masked everywhere (they emit
-        # nothing, receive nothing, and are sliced off the result)
-        n_pad = -(-n // n_dev) * n_dev
-        X = jnp.concatenate([X, jnp.zeros((n_pad - n, d), X.dtype)], axis=0)
-    n_pad = X.shape[0]
+    n_dev = mesh.shape[axis]
+    axis_name = axis
+    # pad X with zero rows; pad rows are masked everywhere (they emit
+    # nothing, receive nothing, and are sliced off the result)
+    X = jnp.concatenate([X, jnp.zeros((n_pad - n, d), X.dtype)], axis=0)
     s = n_pad // n_dev  # shard size (state rows and X rows per device)
-    if n_iters is None:
-        n_iters = max(5, int(round(np.log2(max(n, 2)))))
-    if max_candidates is None:
-        max_candidates = min(60, n_neighbors)
     c = max_candidates
     if block_rows is None:
         block_rows = min(nnd_ops.DEFAULT_BLOCK_ROWS, s)
     b = max(1, min(block_rows, s))
     # pair-join block: the [bj, 2c, 2c, d] broadcast must stay bounded
     bj = max(1, min(b, (8 << 20) // max(16 * c * c * d, 1)))
+    # candidate rows are ringed in once per super-block of G pair-join blocks
+    G = max(1, b // bj)
+    sb = G * bj
+    n_super = -(-s // sb)
 
     # fixed all-to-all bucket widths (per destination device)
     cap_r = max(8, -(-2 * s * k // n_dev))  # reverse edges out
     cap_w = max(8, -(-2 * s * c // n_dev))  # reverse winners returned
-    cap_u = max(16, -(-exchange_slack * s * k // n_dev))  # update tuples
+    cap_b = max(16, -(-exchange_slack * bj * k // n_dev))  # update tuples per block
 
     dist_rowwise = nnd_ops._resolve_rowwise_metric(metric, metric_kwds)
     n_real = n
@@ -536,7 +645,6 @@ def _sharded_data_nn_descent(
         # endpoint heap roots before emitting)
         roots = jax.lax.all_gather(state.dist[:, -1], axis_name, tiled=True)
 
-        n_blocks = -(-s // bj)
         w = 2 * c
 
         def pair_dists(A, B):
@@ -546,67 +654,86 @@ def _sharded_data_nn_descent(
             C = jnp.broadcast_to(B[:, None], (bb, ma, mb, dd)).reshape(bb * ma, mb, dd)
             return dist_rowwise(Q, C).reshape(bb, ma, mb)
 
-        def emit_block(blk, carry):
-            st, local_changes, buf_t, buf_o, buf_d = carry
-            r0 = jnp.minimum(blk * bj, s - bj)
-            rows_local = r0 + jnp.arange(bj, dtype=jnp.int32)
-            cn = cand_new[rows_local]  # [bj, w] global ids
-            co = cand_old[rows_local]
-            Xn = ring(X_shard, jnp.maximum(cn, 0))
-            Xo = ring(X_shard, jnp.maximum(co, 0))
-            # 1-hop self-merge: the candidate rows are already on hand, so
-            # each row folds its own sampled candidates in locally (zero
-            # extra exchange; pure quality win over emit-only)
-            own = jnp.concatenate([cn, co], axis=-1)
-            own_d = dist_rowwise(X_shard[rows_local], jnp.concatenate([Xn, Xo], axis=1))
-            own_d = jnp.where(own >= 0, own_d, jnp.inf)
-            own = jnp.where(
-                own == (me * s + rows_local)[:, None], -1, own
-            )  # no self edges
-            st, ch1 = _local_merge_block(st, rows_local, own, own_d)
-            Dnn = pair_dists(Xn, Xn)  # [bj, w, w]
-            Dno = pair_dists(Xn, Xo)
-            iu = jnp.triu(jnp.ones((w, w), bool), 1)[None]
-            vn = cn >= 0
-            vo = co >= 0
-            m_nn = iu & vn[:, :, None] & vn[:, None, :]
-            m_no = vn[:, :, None] & vo[:, None, :]
+        def flat(P_, Q_, D, m):
+            p = jnp.broadcast_to(P_[:, :, None], D.shape).reshape(-1)
+            q = jnp.broadcast_to(Q_[:, None, :], D.shape).reshape(-1)
+            dv = jnp.where(m, D, jnp.inf).reshape(-1)
+            return p, q, dv
 
-            def flat(P, Q_, D, m):
-                p = jnp.broadcast_to(P[:, :, None], D.shape).reshape(-1)
-                q = jnp.broadcast_to(Q_[:, None, :], D.shape).reshape(-1)
-                dv = jnp.where(m, D, jnp.inf).reshape(-1)
-                return p, q, dv
+        def super_block(i, carry):
+            r0 = jnp.minimum(i * sb, s - sb)
+            cn_sb = jax.lax.dynamic_slice_in_dim(cand_new, r0, sb)
+            co_sb = jax.lax.dynamic_slice_in_dim(cand_old, r0, sb)
+            Xn_sb = ring(X_shard, jnp.maximum(cn_sb, 0))
+            Xo_sb = ring(X_shard, jnp.maximum(co_sb, 0))
 
-            p1, q1, d1 = flat(cn, cn, Dnn, m_nn)
-            p2, q2, d2 = flat(cn, co, Dno, m_no)
-            # both directions: the tuple targeted at t is kept iff it beats
-            # t's current k-th distance (stale by <= 1 iteration — harmless)
-            t_all = jnp.concatenate([p1, q1, p2, q2])
-            o_all = jnp.concatenate([q1, p1, q2, p2])
-            d_all = jnp.concatenate([d1, d1, d2, d2])
-            ok = (
-                jnp.isfinite(d_all)
-                & (t_all >= 0)
-                & (o_all >= 0)
-                & (t_all != o_all)
-                & (d_all < roots[jnp.maximum(t_all, 0)])
-            )
-            # fold this block's tuples into the running per-dest best buffers
-            t_cat = jnp.concatenate([buf_t, jnp.where(ok, t_all, -1)])
-            o_cat = jnp.concatenate([buf_o, o_all])
-            d_cat = jnp.concatenate([buf_d, jnp.where(ok, d_all, jnp.inf)])
-            dest = jnp.where(t_cat >= 0, t_cat // s, n_dev)
-            (nb, nf) = _bucket_by_dest(dest, d_cat, (t_cat, o_cat), cap_u)
-            return (st, local_changes + ch1, nb[0], nb[1], nf)
+            def emit_block(j, carry):
+                st, local_changes, buf_t, buf_o, buf_d = carry
+                j0 = j * bj
+                rows_local = r0 + j0 + jnp.arange(bj, dtype=jnp.int32)
+                cn = jax.lax.dynamic_slice_in_dim(cn_sb, j0, bj)  # [bj, w] global ids
+                co = jax.lax.dynamic_slice_in_dim(co_sb, j0, bj)
+                Xn = jax.lax.dynamic_slice_in_dim(Xn_sb, j0, bj)
+                Xo = jax.lax.dynamic_slice_in_dim(Xo_sb, j0, bj)
+                # 1-hop self-merge: the candidate rows are already on hand,
+                # so each row folds its own sampled candidates in locally
+                # (zero extra exchange; pure quality win over emit-only)
+                own = jnp.concatenate([cn, co], axis=-1)
+                own_d = dist_rowwise(
+                    X_shard[rows_local], jnp.concatenate([Xn, Xo], axis=1)
+                )
+                own_d = jnp.where(own >= 0, own_d, jnp.inf)
+                own = jnp.where(
+                    own == (me * s + rows_local)[:, None], -1, own
+                )  # no self edges
+                st, ch1 = _local_merge_block(st, rows_local, own, own_d)
+                Dnn = pair_dists(Xn, Xn)  # [bj, w, w]
+                Dno = pair_dists(Xn, Xo)
+                iu = jnp.triu(jnp.ones((w, w), bool), 1)[None]
+                vn = cn >= 0
+                vo = co >= 0
+                m_nn = iu & vn[:, :, None] & vn[:, None, :]
+                m_no = vn[:, :, None] & vo[:, None, :]
+                p1, q1, d1 = flat(cn, cn, Dnn, m_nn)
+                p2, q2, d2 = flat(cn, co, Dno, m_no)
+                # both directions: the tuple targeted at t is kept iff it
+                # beats t's current k-th distance (stale by <= 1 iteration)
+                t_all = jnp.concatenate([p1, q1, p2, q2])
+                o_all = jnp.concatenate([q1, p1, q2, p2])
+                d_all = jnp.concatenate([d1, d1, d2, d2])
+                ok = (
+                    jnp.isfinite(d_all)
+                    & (t_all >= 0)
+                    & (o_all >= 0)
+                    & (t_all != o_all)
+                    & (d_all < roots[jnp.maximum(t_all, 0)])
+                )
+                # this block's best cap_b tuples per destination go to its
+                # own slot of the exchange buffer
+                (nb, nf) = _bucket_by_dest(
+                    jnp.where(ok, t_all // s, n_dev), jnp.where(ok, d_all, jnp.inf),
+                    (t_all, o_all), cap_b,
+                )
+                slot = (0, i * G + j, 0)
+                buf_t = jax.lax.dynamic_update_slice(
+                    buf_t, nb[0].reshape(n_dev, 1, cap_b), slot)
+                buf_o = jax.lax.dynamic_update_slice(
+                    buf_o, nb[1].reshape(n_dev, 1, cap_b), slot)
+                buf_d = jax.lax.dynamic_update_slice(
+                    buf_d, nf.reshape(n_dev, 1, cap_b), slot)
+                return (st, local_changes + ch1, buf_t, buf_o, buf_d)
 
-        buf_t = jnp.full((n_dev * cap_u,), -1, jnp.int32)
-        buf_o = jnp.full((n_dev * cap_u,), -1, jnp.int32)
-        buf_d = jnp.full((n_dev * cap_u,), jnp.inf, jnp.float32)
+            return jax.lax.fori_loop(0, G, emit_block, carry)
+
+        slots = (n_dev, n_super * G, cap_b)
+        buf_t = jnp.full(slots, -1, jnp.int32)
+        buf_o = jnp.full(slots, -1, jnp.int32)
+        buf_d = jnp.full(slots, jnp.inf, jnp.float32)
         state, local_changes, buf_t, buf_o, buf_d = jax.lax.fori_loop(
-            0, n_blocks, emit_block,
+            0, n_super, super_block,
             (state, jnp.int32(0), buf_t, buf_o, buf_d),
         )
+        buf_t, buf_o, buf_d = (a.reshape(-1) for a in (buf_t, buf_o, buf_d))
 
         # ---- update exchange (all_to_all #3) + local apply ----
         rx_t = a2a_i(buf_t)
@@ -626,10 +753,8 @@ def _sharded_data_nn_descent(
         changes = jax.lax.psum(n_changed + local_changes, axis_name)
         return merged, changes
 
-    stop_count = jnp.float32(delta * k * n)
-
-    def program(X_shard, key, forest_args):
-        state = make_neighbor_state(s, k)
+    def program_init(X_shard, key, init, forest_args):
+        state = NeighborState(*init) if init else make_neighbor_state(s, k)
         if forest_args is not None:
             orders, starts, sizes, invs = forest_args
 
@@ -639,12 +764,40 @@ def _sharded_data_nn_descent(
                 )
 
             state = jax.lax.fori_loop(0, orders.shape[0], tree_body, state)
-        state = random_init_shard(
+        return random_init_shard(
             X_shard, state, rng.derive(key, rng.ROLE_DESCENT_INIT)
         )
 
+    def init(key, init_state, forest):
+        forest_args = None
+        if forest is not None:
+            orders, starts, sizes = (jnp.asarray(f) for f in forest)
+            npts = orders.shape[1]
+            trow = jnp.arange(orders.shape[0], dtype=jnp.int32)[:, None]
+            invs = (
+                jnp.zeros(orders.shape, jnp.int32)
+                .at[trow, orders]
+                .set(
+                    jnp.broadcast_to(
+                        jnp.arange(npts, dtype=jnp.int32)[None], orders.shape
+                    ),
+                    unique_indices=True,
+                )
+            )
+            forest_args = (orders, starts, sizes, invs)
+        init = () if init_state is None else tuple(init_state)
+        fn = shard_map(
+            functools.partial(program_init, forest_args=forest_args),
+            mesh=mesh,
+            in_specs=(spec_x, spec_rep, (spec_x,) * len(init)),
+            out_specs=spec_x,
+            check_vma=False,
+        )
+        return jax.jit(fn)(X, key, init)
+
+    def loop(X_shard, state, key, *, n_iters):
         def cond(carry):
-            st, it, changes = carry
+            _, it, changes = carry
             return (it < n_iters) & (changes > stop_count)
 
         def body(carry):
@@ -655,34 +808,39 @@ def _sharded_data_nn_descent(
         state, _, _ = jax.lax.while_loop(
             cond, body, (state, jnp.int32(0), jnp.float32(np.inf))
         )
-        return sort_by_distance(state.idx, state.dist)
+        return state
 
-    forest_args = None
-    if forest is not None:
-        orders, starts, sizes = (jnp.asarray(f) for f in forest)
-        npts = orders.shape[1]
-        trow = jnp.arange(orders.shape[0], dtype=jnp.int32)[:, None]
-        invs = (
-            jnp.zeros(orders.shape, jnp.int32)
-            .at[trow, orders]
-            .set(
-                jnp.broadcast_to(
-                    jnp.arange(npts, dtype=jnp.int32)[None], orders.shape
-                ),
-                unique_indices=True,
-            )
-        )
-        forest_args = (orders, starts, sizes, invs)
+    @functools.partial(jax.jit, static_argnames=("n_iters", "window_rows"))
+    def join(state, X_, key, n_iters, window_rows):
+        # the sharded join samples the whole table: window_rows has no
+        # sharded form, so phase iterations run unwindowed in tree order
+        del window_rows
+        return shard_map(
+            functools.partial(loop, n_iters=n_iters), mesh=mesh,
+            in_specs=(spec_x, spec_x, spec_rep), out_specs=spec_x,
+            check_vma=False,
+        )(X_, state, key)
 
-    fn = shard_map(
-        functools.partial(program, forest_args=forest_args),
-        mesh=mesh,
-        in_specs=(spec_x, spec_rep),
-        out_specs=(spec_x, spec_x),
-        check_vma=False,
+    to_tree_state, from_tree = _tree_moves(mesh, axis, n_dev, s)
+
+    @jax.jit
+    def permute_x(X_, order):
+        def fetch(X_shard, order):
+            me = jax.lax.axis_index(axis)
+            ids = jax.lax.dynamic_slice_in_dim(order, me * s, s)
+            return ring(X_shard, ids)
+
+        return shard_map(fetch, mesh=mesh, in_specs=(spec_x, spec_rep),
+                         out_specs=spec_x, check_vma=False)(X_, order)
+
+    stages = nnd_ops.DescentStages(
+        to_tree=lambda st, X_, order: (to_tree_state(st, order), permute_x(X_, order)),
+        sweep=_slab_sweep(mesh, axis, s, n, metric, x_sharded=True),
+        join=join,
+        from_tree=from_tree,
     )
-    idx, dist = jax.jit(fn)(X, key)
-    return idx[:n], dist[:n]
+    X = jax.device_put(X, NamedSharding(mesh, spec_x))
+    return init, stages, X
 
 
 def sharded_search(queries, X, adj, tree, key, mesh, *, k, epsilon=0.1,
@@ -692,7 +850,7 @@ def sharded_search(queries, X, adj, tree, key, mesh, *, k, epsilon=0.1,
     """Query search with the query batch sharded over the mesh (data-parallel
     serving: each device runs the beam loop on its query shard against the
     replicated index). On a 2-D mesh the queries shard over the *outer*
-    (DCN) axis, so serving traffic never crosses the build axis."""
+    (replica) axis, so serving traffic never crosses the build axis."""
     from pynndescent_tpu.models import search as search_ops
 
     if len(mesh.axis_names) > 1:

@@ -8,8 +8,8 @@ graph_utils.py:193), used by the UMAP ecosystem.
 The reference finds an *approximate* minimum cross-component edge with a
 bespoke bidirectional graph-informed beam search per component pair
 (graph_utils.py:24-165) — the right call on a CPU, where exact pairwise
-scans are expensive. On TPU the MXU makes blocked pairwise tiles nearly
-free, so the edge is found **exactly**: every (block x block) tile of the
+scans are expensive. On an accelerator blocked pairwise tiles are cheap
+matrix products, so the edge is found **exactly**: every (block x block) tile of the
 full cross-component distance matrix is streamed through the device with a
 running (min, argmin) carried on device, and only the final winner is
 pulled to the host (one round trip per component pair). Exact beats the
@@ -83,7 +83,7 @@ def _min_cross_edge(index, comp_a, comp_b, block=4096):
 def connect_graph(graph, index, search_size=10, n_jobs=None, random_state=None):
     """Connect all components of the kNN adjacency by adding the exact
     minimum-cost edge between EVERY component pair (reference
-    graph_utils.py:193-229 adds an approximate edge per pair; the TPU build
+    graph_utils.py:193-229 adds an approximate edge per pair; this build
     adds the true minimum per pair).
 
     ``search_size``/``n_jobs``/``random_state`` are accepted for signature

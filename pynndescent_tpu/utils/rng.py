@@ -2,7 +2,7 @@
 
 The reference threads a mutable 3-word Tausworthe state through every kernel,
 with per-thread streams made by offsetting the state with the thread id
-(reference: utils.py:11-57, 261-262). On TPU the idiomatic equivalent is
+(reference: utils.py:11-57, 261-262). In JAX the idiomatic equivalent is
 JAX's stateless threefry keys: every (phase, iteration, role) derives its own
 key via ``fold_in``, so results are bit-identical regardless of device count
 or scheduling — the determinism contract the reference tests demand

@@ -1,26 +1,35 @@
 """Test fixtures mirroring the reference suite (reference: tests/conftest.py).
 
 Tests run on a *virtual 8-device CPU mesh* so multi-chip sharding logic is
-exercised without TPU hardware; the benchmark path runs on the real chip.
+exercised without GPUs; ``chip_smoke.py`` and the benchmark run on the card,
+and the tests marked ``gpu`` run there with
+``PYNNDESCENT_TEST_GPU=1 python -m pytest tests -m gpu`` (modules that need
+scikit-learn skip where it is not installed).
 These environment variables must be set before jax initialises.
 """
 
 import os
 
-os.environ["JAX_PLATFORMS"] = "cpu"
-_flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in _flags:
-    os.environ["XLA_FLAGS"] = (_flags + " --xla_force_host_platform_device_count=8").strip()
+# PYNNDESCENT_TEST_GPU=1 leaves the platform to JAX (on a GPU host: the
+# card), so the tests marked ``gpu`` run; every other run is held to the
+# virtual CPU mesh.
+ON_GPU = os.environ.get("PYNNDESCENT_TEST_GPU") == "1"
+if not ON_GPU:
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    _flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in _flags:
+        os.environ["XLA_FLAGS"] = (_flags + " --xla_force_host_platform_device_count=8").strip()
 
 import jax
 
-# jax may already be imported by a pytest plugin, in which case it captured
-# JAX_PLATFORMS at import time — override through the config as well.
-jax.config.update("jax_platforms", "cpu")
+if not ON_GPU:
+    # jax may already be imported by a pytest plugin, in which case it
+    # captured JAX_PLATFORMS at import time — override through the config.
+    jax.config.update("jax_platforms", "cpu")
 # NOTE: the persistent compilation cache is deliberately NOT enabled here —
 # XLA:CPU AOT cache entries are machine-feature-specific and a poisoned
 # entry silently produces WRONG numerics (observed: shard-invariance test
-# failing only under a stale cache). The TPU bench path enables it safely.
+# failing only under a stale cache). bench.py and chip_smoke.py enable it.
 
 import numpy as np
 import pytest
@@ -107,6 +116,19 @@ def pytest_collection_modifyitems(config, items):
     for item in items:
         if item.name in SLOW_TESTS:
             item.add_marker(pytest.mark.slow)
+
+
+@pytest.fixture
+def gpu():
+    """The first GPU device; skips the test where JAX has none. Decided here,
+    at run time — never while a module is imported."""
+    device = jax.devices()[0]
+    if device.platform != "gpu":
+        pytest.skip(
+            "needs an NVIDIA GPU: run `PYNNDESCENT_TEST_GPU=1 python -m pytest "
+            "tests -m gpu` on a GPU host"
+        )
+    return device
 
 
 @pytest.fixture

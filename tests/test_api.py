@@ -7,7 +7,7 @@ import pickle
 import numpy as np
 import pytest
 from scipy import sparse
-from sklearn.neighbors import NearestNeighbors
+NearestNeighbors = pytest.importorskip("sklearn.neighbors").NearestNeighbors
 
 from pynndescent_tpu import NNDescent, PyNNDescentTransformer
 from pynndescent_tpu.utils import graph_utils
@@ -239,7 +239,7 @@ def test_connect_graph():
 def test_connect_graph_exact_min_edge():
     """connect_graph must choose the TRUE minimum cross-component edge, even
     for components larger than any sampling cap (reference finds an
-    approximate edge, graph_utils.py:123-165; the TPU build is exact)."""
+    approximate edge, graph_utils.py:123-165; this build is exact)."""
     from scipy.spatial.distance import cdist
 
     rs = np.random.RandomState(5)

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 from scipy import sparse
-from sklearn.neighbors import NearestNeighbors
+NearestNeighbors = pytest.importorskip("sklearn.neighbors").NearestNeighbors
 
 from pynndescent_tpu import NNDescent
 from pynndescent_tpu.ops.rp_trees import flatten_search_tree, descend_tree, forest_depth

@@ -3,7 +3,7 @@
 
 import numpy as np
 import pytest
-from sklearn.neighbors import NearestNeighbors
+NearestNeighbors = pytest.importorskip("sklearn.neighbors").NearestNeighbors
 
 from pynndescent_tpu import NNDescent
 
@@ -84,8 +84,7 @@ def test_locality_windowed_descent_recall(nn_data):
     n >= 400k this mode is the default via locality='auto'). Clustered data
     like every ann-benchmarks dataset — tree-order slabs are only spatial
     cells when the space HAS cells; on structureless uniform data the mode
-    is not the default at any n. Validated at depth on the CPU stall
-    testbed in PERF_NOTES (recall-POSITIVE at 30k x 128)."""
+    is not the default at any n."""
     rs = np.random.RandomState(3)
     centers = rs.randn(25, 32).astype(np.float32) * 4
     train = (centers[rs.randint(0, 25, 1500)]
@@ -150,7 +149,7 @@ def test_expansion_default_pinned():
     """The beam search's operative expansion width is 2 (both the search()
     driver default and search_block's own default): every recall floor in
     this suite was tuned at E=2, so a silent retune of either default would
-    invalidate them (VERDICT r3 weak #4)."""
+    invalidate them."""
     import inspect
 
     from pynndescent_tpu.models import search as search_mod
@@ -208,7 +207,7 @@ def test_device_array_queries_cosine(nn_data):
 
 def test_phase_times_populated(nn_data):
     """profile=True accumulates structured per-phase wall seconds across
-    build, prepare and query (SURVEY §5 tracing subsystem; VERDICT r3 #10)."""
+    build, prepare and query (SURVEY §5 tracing subsystem)."""
     from pynndescent_tpu import NNDescent
 
     index = NNDescent(

@@ -5,7 +5,7 @@ proxy metrics, metric kwds, degree-aware diversify
 import numpy as np
 import pytest
 from scipy import sparse
-from sklearn.neighbors import NearestNeighbors
+NearestNeighbors = pytest.importorskip("sklearn.neighbors").NearestNeighbors
 
 from pynndescent_tpu import NNDescent
 

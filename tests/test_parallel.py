@@ -95,8 +95,8 @@ def test_sharded_build_non_divisible_n(nn_data):
 
 @pytest.mark.slow
 def test_sharded_data_build(nn_data):
-    """X row-sharded over the mesh (the >per-device-HBM mode): candidate
-    rows ride the ICI ring; results match the exact oracle."""
+    """X row-sharded over the mesh (the >per-device-memory mode): candidate
+    rows circulate on the ppermute ring; results match the exact oracle."""
     from sklearn.neighbors import NearestNeighbors
 
     from pynndescent_tpu.parallel import make_mesh, sharded_nn_descent
@@ -121,7 +121,7 @@ def test_sharded_data_build(nn_data):
 
 @pytest.mark.slow
 def test_2d_mesh_build_and_search(nn_data):
-    """2-D (DCN x ICI style) mesh: vertices shard over the inner axis,
+    """2-D (replica x data) mesh: vertices shard over the inner axis,
     queries over the outer axis."""
     from sklearn.neighbors import NearestNeighbors
 
@@ -274,7 +274,7 @@ def test_group_topc_exact():
 
 
 def test_mesh_native_index_class(nn_data):
-    """VERDICT r4 task 6: multi-device through the PUBLIC API. Building and
+    """Multi-device through the PUBLIC API. Building and
     querying via NNDescent(devices=8) must hit the reference recall floors
     (query >= 0.95 at eps 0.2, tests/test_pynndescent_.py:133-165) and agree
     statistically with the single-device index."""
@@ -323,7 +323,7 @@ def test_mesh_native_index_pickle(nn_data):
 
 
 def test_mesh_native_update(nn_data):
-    """VERDICT r5 task 6: update() on a devices= index re-runs the descent
+    """update() on a devices= index re-runs the descent
     through the SAME mesh parallelism as the build (reference analog: update
     under the build's threading, pynndescent_.py:2381-2553). Build with
     devices=8, append fresh rows, query: the recall floor must hold over the
@@ -367,3 +367,174 @@ def test_mesh_native_inplace_update(nn_data):
     qi, _ = index.query(moved, k=4, epsilon=0.2)
     hits = np.mean([i in qi[i] for i in range(10)])
     assert hits >= 0.9
+
+
+def _mesh_stages(data, mesh, shard_data, k=6):
+    import jax.numpy as jnp
+
+    from pynndescent_tpu.parallel import mesh as mesh_mod
+
+    n = data.shape[0]
+    n_dev = mesh.shape["data"]
+    make = mesh_mod._data_sharded_stages if shard_data else mesh_mod._replicated_stages
+    _, stages, X_dev = make(
+        jnp.asarray(data), k, mesh, "data", n_pad=-(-n // n_dev) * n_dev,
+        metric="sqeuclidean", metric_kwds=None, max_candidates=k, leaf_cap=16,
+        block_rows=None, stop_count=jnp.float32(0.0),
+    )
+    return stages, X_dev
+
+
+def test_sharded_window_sweeps_match_slab_oracle(nn_data):
+    """One sweep phase over the identity order: every row holds the exact
+    top-k of its window, windows cut per device slab (never straddling
+    one), ids global."""
+    _check_slab_sweep(nn_data, 800, shard_data=False)
+
+
+@pytest.mark.parametrize(
+    "n, shard_data", [(797, False), (800, True), (797, True)],
+    ids=["padded", "shard_data", "shard_data-padded"],
+)
+def test_sharded_window_sweeps_slab_oracle_cases(nn_data, n, shard_data):
+    """As above with X row-sharded, and with n not dividing the mesh: rows
+    past n (the last slab's padding) neither get nor give candidates."""
+    _check_slab_sweep(nn_data, n, shard_data)
+
+
+def _check_slab_sweep(nn_data, n, shard_data):
+    import jax.numpy as jnp
+
+    from pynndescent_tpu.ops.neighbors import make_neighbor_state
+    from pynndescent_tpu.parallel import make_mesh
+
+    data = nn_data[:n]
+    k, win, slab = 6, 64, 100  # 8 devices x 100-row slabs
+    mesh = make_mesh(8)
+    stages, X_dev = _mesh_stages(data, mesh, shard_data, k)
+    order = jnp.arange(800, dtype=jnp.int32)
+    st, Xp = stages.to_tree(make_neighbor_state(800, k), X_dev, order)
+    st = stages.from_tree(stages.sweep(st, Xp, win, k, 0), order)
+    idx, dist = np.asarray(st.idx), np.asarray(st.dist)
+    assert np.all(idx[n:] == -1)
+    for s0 in range(0, n, slab):
+        for w0 in range(s0, min(s0 + slab, n), win):
+            w1 = min(w0 + win, s0 + slab, n)
+            blk = data[w0:w1].astype(np.float64)
+            D = ((blk[:, None] - blk[None]) ** 2).sum(-1)
+            np.fill_diagonal(D, np.inf)
+            want = np.sort(D, axis=1)[:, :k]
+            got = dist[w0:w1, : want.shape[1]]
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+            ok = idx[w0:w1] >= 0
+            assert np.all((idx[w0:w1][ok] >= w0) & (idx[w0:w1][ok] < w1))
+
+
+@pytest.mark.parametrize("shard_data", [False, True], ids=["replicated", "shard_data"])
+def test_tree_moves_match_single_device(nn_data, shard_data):
+    """The mesh's tree-order moves (row fetches through the ppermute ring)
+    give the single-device permutation (ops.nndescent._state_to_tree_order)
+    and invert exactly."""
+    import jax.numpy as jnp
+
+    from pynndescent_tpu.ops import nndescent as nnd_ops
+    from pynndescent_tpu.ops.neighbors import NeighborState
+    from pynndescent_tpu.parallel import make_mesh
+
+    n, k = 800, 6
+    rs = np.random.RandomState(0)
+    state = NeighborState(
+        jnp.asarray(rs.randint(-1, n, (n, k)).astype(np.int32)),
+        jnp.asarray(rs.uniform(size=(n, k)).astype(np.float32)),
+        jnp.asarray(rs.uniform(size=(n, k)) < 0.5),
+    )
+    order = jnp.asarray(rs.permutation(n).astype(np.int32))
+    stages, X_dev = _mesh_stages(nn_data[:n], make_mesh(8), shard_data, k)
+    st_p, Xp = stages.to_tree(state, X_dev, order)
+    want = nnd_ops._state_to_tree_order(state, order)
+    for got, ref in zip(st_p, want):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+    np.testing.assert_array_equal(np.asarray(Xp)[:n], nn_data[:n][np.asarray(order)])
+    for got, ref in zip(stages.from_tree(st_p, order), state):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+
+
+def _count_sweeps(monkeypatch):
+    from pynndescent_tpu.parallel import mesh as mesh_mod
+
+    calls = []
+    make = mesh_mod._slab_sweep
+
+    def counting(*args, **kwargs):
+        sweep = make(*args, **kwargs)
+
+        def counted(*a):
+            calls.append(a[2:])
+            return sweep(*a)
+
+        return counted
+
+    monkeypatch.setattr(mesh_mod, "_slab_sweep", counting)
+    return calls
+
+
+def _locality_build_recall(data, shard_data, locality, seed=8, k=8):
+    from sklearn.neighbors import NearestNeighbors
+
+    from pynndescent_tpu.ops import rp_trees
+    from pynndescent_tpu.parallel import make_mesh, sharded_nn_descent
+    from pynndescent_tpu.utils import rng
+
+    n = data.shape[0]
+    forest = rp_trees.build_forest_orders(
+        data, np.arange(4, dtype=np.uint32), 60, rp_trees.forest_depth(n, 60)
+    )
+    idx, _ = sharded_nn_descent(
+        data, k, rng.state_from_seed(seed), make_mesh(8), forest=forest,
+        leaf_cap=60, block_rows=100, shard_data=shard_data, locality=locality,
+    )
+    idx = np.asarray(idx)
+    assert idx.shape == (n, k) and idx.max() < n
+    true_idx = NearestNeighbors(n_neighbors=k).fit(data).kneighbors(
+        data, k, return_distance=False
+    )
+    return np.mean([len(np.intersect1d(idx[i], true_idx[i])) / k for i in range(n)])
+
+
+@pytest.mark.parametrize("shard_data", [False, True], ids=["replicated", "shard_data"])
+def test_mesh_build_runs_locality_sweeps(nn_data, monkeypatch, shard_data):
+    """devices= builds follow nn_descent's sweep schedule (the shared
+    run_schedule): leaf + random init, one sharded window sweep per phase,
+    then a short sharded polish — and reach the build floor."""
+    _check_locality_sweeps(nn_data, monkeypatch, 800, shard_data)
+
+
+@pytest.mark.parametrize("shard_data", [False, True], ids=["replicated", "shard_data"])
+def test_mesh_build_locality_non_divisible_n(nn_data, monkeypatch, shard_data):
+    """The same schedule when n does not divide the mesh (the state and X
+    are padded; the last slab's pad rows are masked)."""
+    _check_locality_sweeps(nn_data, monkeypatch, 797, shard_data)
+
+
+def _check_locality_sweeps(nn_data, monkeypatch, n, shard_data):
+    calls = _count_sweeps(monkeypatch)
+    recall = _locality_build_recall(
+        nn_data[:n], shard_data,
+        {"window": 400, "sweep": 64, "sweep_m": 16, "phases": 3,
+         "phase_iters": 0, "global_iters": 2, "sweep_stagger": False},
+    )
+    assert calls == [(64, 16, 0)] * 3
+    assert recall >= 0.95, f"mesh locality build recall {recall}"
+
+
+@pytest.mark.parametrize("shard_data", [False, True], ids=["replicated", "shard_data"])
+def test_mesh_build_runs_phase_iterations(nn_data, monkeypatch, shard_data):
+    """Windowed-join phase iterations (phase_iters) run on a mesh as on one
+    card: per phase the join runs in the tree's order; no sweep."""
+    calls = _count_sweeps(monkeypatch)
+    recall = _locality_build_recall(
+        nn_data[:797], shard_data,
+        {"window": 200, "phases": 2, "phase_iters": 3, "global_iters": 2},
+    )
+    assert calls == []
+    assert recall >= 0.95, f"mesh phase-iteration build recall {recall}"

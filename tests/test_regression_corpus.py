@@ -1,7 +1,7 @@
 """Reference regression corpus — real pathological payloads.
 
 Runs the reference suite's recorded bug payloads (read-only from
-/root/reference/pynndescent/tests/test_data/) through the TPU build:
+/root/reference/pynndescent/tests/test_data/) through this build:
 
 * cosine_hang.npy: many all-zero and duplicate rows that blew the reference's
   recursive RP trees (reference test_pynndescent_.py:299-348);

@@ -1,6 +1,6 @@
 """Hashed-projection sketch path for wide sparse data (ops/sketch.py).
 
-The sketch is the TPU-native *proxy* formulation of the reference's sparse
+The sketch is the dense *proxy* formulation of the reference's sparse
 path (reference proxy design: /root/reference/pynndescent/distances.py:
 2190-2239 — build/search under a cheap order-preserving surrogate, exact
 rerank on output). These tests assert the three contracts that make the
@@ -19,7 +19,7 @@ import pickle
 import pytest
 from scipy import sparse
 from scipy.spatial import distance as sd
-from sklearn.neighbors import NearestNeighbors
+NearestNeighbors = pytest.importorskip("sklearn.neighbors").NearestNeighbors
 
 from pynndescent_tpu import NNDescent
 from pynndescent_tpu.ops import sketch as sketch_ops
@@ -66,7 +66,7 @@ def test_resolve_semantics():
         "binarize": False,
     }
     # jaccard-family metrics use a sign (1-bit) minhash under euclidean:
-    # +-1 signs ride the MXU fast paths and are exact in bfloat16
+    # +-1 signs ride the matmul fast paths and are exact in bfloat16
     cfg = sketch_ops.resolve("auto", "jaccard", WIDE)
     assert cfg["kind"] == "minhash" and cfg["encode"] == "sign"
     assert cfg["internal"] == "euclidean"

@@ -3,7 +3,7 @@
 
 import numpy as np
 import pytest
-from sklearn.neighbors import NearestNeighbors
+NearestNeighbors = pytest.importorskip("sklearn.neighbors").NearestNeighbors
 
 from pynndescent_tpu import NNDescent
 
